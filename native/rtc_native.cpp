@@ -974,9 +974,9 @@ void rtc_kssd_extract(void* s, uint64_t* out) {
 void rtc_kssd_destroy(void* s) { delete (KssdSketcher*)s; }
 
 // ---- exact pair verification (two-pointer over CSR sketch store) ----------
-// Used by the MXU-filter + exact-verify pipeline and by host engines.
+// Used by the bitmap-filter + exact-verify pipeline and by host engines.
 
-// Bit-packed signature construction for the MXU bitmap filter:
+// Bit-packed signature construction for the device bitmap filter:
 // bit index = (h * 0x9E3779B97F4A7C15) >> (64 - log2(bits)).
 // out: n rows x bits/8 bytes (little bit order); coll[g] = size - popcount.
 void rtc_pack_bitmaps_u32(const uint32_t* flat, const int64_t* offs,

@@ -1,6 +1,6 @@
-"""rabbittclust_tpu — TPU-native genome clustering framework.
+"""rabbittclust_tpu — GPU-accelerated genome clustering framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX re-design of the capabilities of
 RabbitBio/RabbitTClust: k-mer sketching (KSSD / MinHash), sketch-distance
 estimation (Mash / AAF containment), and large-scale clustering
 (single-linkage-over-MST, greedy incremental, Louvain/Leiden, DBSCAN) with
@@ -9,7 +9,7 @@ persistence, incremental append, and representative databases.
 Layer map (mirrors SURVEY.md §7):
     io/        host streaming FASTA ingest, genome metadata
     sketch/    KSSD + MinHash sketch builders (native C++ fast path)
-    ops/       Pallas/JAX device kernels (pairwise intersection engine)
+    ops/       JAX device engines and the Triton pair-count kernel
     index/     inverted indexes (host + CSR device form)
     distance/  Mash / AAF distance math
     cluster/   MST, greedy, leiden, dbscan engines + postprocess

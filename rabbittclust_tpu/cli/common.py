@@ -17,13 +17,13 @@ VERSION = "2.2.1"
 def base_parser(module: str) -> argparse.ArgumentParser:
     descriptions = {
         "mst": f"clust-mst v.{VERSION}, minimum-spanning-tree-based module "
-               f"for RabbitTClust (TPU-native build)",
+               "for RabbitTClust",
         "greedy": f"clust-greedy v.{VERSION}, greedy incremental clustering "
-                  f"module for RabbitTClust (TPU-native build)",
+                  "module for RabbitTClust",
         "leiden": f"clust-leiden v.{VERSION}, Graph-based community "
-                  f"detection (Louvain) clustering module (TPU-native build)",
+                  "detection (Louvain) clustering module",
         "dbscan": f"clust-dbscan v.{VERSION}, DBSCAN density-based "
-                  f"clustering module (TPU-native build)",
+                  "clustering module",
     }
     p = argparse.ArgumentParser(description=descriptions[module])
     p.add_argument("-t", "--threads", type=int,
@@ -82,10 +82,11 @@ def base_parser(module: str) -> argparse.ArgumentParser:
                    help="append genome file or file list with the "
                         "pre-generated sketch or MST files")
     p.add_argument("--device", dest="use_device", action="store_true",
-                   help="run the pairwise-distance engine on the TPU "
-                        "(JAX/Pallas) instead of the host path; with more "
-                        "than one visible device the mesh ring engine is "
-                        "auto-selected for the MST phase")
+                   help="run the pairwise-distance engine on the GPU "
+                        "(JAX) instead of the host path; with more than "
+                        "one visible device the mesh ring engine is "
+                        "auto-selected for the MST phase.  Refused when no "
+                        "GPU is found, unless JAX_PLATFORMS=cpu is set")
     if module in ("mst", "greedy", "leiden", "dbscan"):
         p.add_argument("--multihost", default=None,
                        metavar="COORD:PORT,NPROC,PID",
@@ -208,6 +209,17 @@ def validate_common(args, module: str) -> None:
         print(f"ERROR: clust-{module} supports KSSD (--fast) sketches only",
               file=sys.stderr)
         sys.exit(1)
+    if getattr(args, "use_device", False) and \
+            not getattr(args, "multihost", None):
+        # (--multihost must initialize jax.distributed before any backend
+        # query, so the check is skipped there)
+        from ..utils.jaxcfg import check_device_platform, configure_jax
+        configure_jax()
+        try:
+            check_device_platform()
+        except RuntimeError as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            sys.exit(1)
 
 
 def make_output_options(args, module: str):

@@ -67,7 +67,7 @@ def _neighbor_lists(hashes, eps: float, kmer_size: int, knn_k: int,
                     use_device: bool = False) -> List[np.ndarray]:
     """Adjacency (neighbors within eps) for every point.
 
-    ``use_device`` routes candidate generation through the MXU bitmap
+    ``use_device`` routes candidate generation through the bitmap
     filter (ops/bitmap.py) — the DBSCAN neighbor criterion is exactly the
     threshold-bounded candidate set, so the filter's no-false-negative
     bound applies directly."""

@@ -8,7 +8,7 @@ BFS component labeling.
 The candidate generation here is fully vectorized NumPy (sort + run-length
 pair expansion) — semantically identical to the reference's inverted-index
 walk: a pair (i, j) is a candidate iff the sketches share >= 1 hash.  The
-device (TPU) engine in ops/ produces the same integer counts for dense pair
+device engine in ops/ produces the same integer counts for dense pair
 tiles; both feed this module's Kruskal/labeling.
 """
 

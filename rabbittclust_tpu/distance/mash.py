@@ -7,7 +7,7 @@ Formulas (reference src/MST.cpp:514-540, src/greedy.cpp:526-543):
   AAF         D = -(1/k) * ln(c);           c=1 -> 0, c=0 -> 1
 
 All final distances are computed on the host in float64 from exact integer
-intersection counts — device kernels only produce the integer counts, so TPU
+intersection counts — device kernels only produce the integer counts, so device
 float rounding can never change a cluster decision.
 """
 

@@ -1,4 +1,4 @@
-"""Fast exact threshold clustering: MXU filter + union-find-gated verify.
+"""Fast exact threshold clustering: bitmap filter + union-find-gated verify.
 
 The single-linkage partition at threshold d is the connected components of
 the graph of pairs with dist <= d.  Key observation: once two genomes are in
@@ -56,6 +56,8 @@ def threshold_clusters_device(
     row_block = int(os.environ.get("RTC_CLUSTER_RB", row_block))
     engine = os.environ.get("RTC_CLUSTER_ENGINE", engine)
     if engine == "auto":
+        # crossover set on other hardware; re-decided on the H100 by
+        # ROADMAP 1.6
         engine = "lp" if n > 16384 else "stream"
     if engine == "lp":
         from .labelprop import threshold_clusters_device_lp

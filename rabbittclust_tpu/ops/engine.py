@@ -2,16 +2,16 @@
 
 Semantics identical to cluster.mst.compute_mst (edges for every pair with
 common >= 1 passing the size-ratio filter), but the O(N^2) intersection
-counting runs on the TPU.  Per-tile candidate edges are reduced by the same
+counting runs on the GPU.  Per-tile candidate edges are reduced by the same
 streaming Kruskal — the partition-MST theorem (MST of edge-partition MSTs
 == global MST) guarantees exactness.
 
 Two pull modes (``pull`` / RTC_MST_PULL):
 
 * "compact" (default): square-tile batched sweep.  One dispatch filters a
-  batch of tiles (exact Pallas/XLA pair counts -> candidate mask -> count +
-  bit-packed mask); the host pulls the tiny per-tile counts, then only the
-  packed masks of nonempty tiles (rb^2/8 bytes/tile), decodes the surviving
+  batch of tiles (exact pair counts, the Triton kernel on a GPU ->
+  candidate mask -> count + bit-packed mask); the host pulls the tiny
+  per-tile counts, then only the packed masks of nonempty tiles (rb^2/8 bytes/tile), decodes the surviving
   pairs natively, and a second dispatch gathers the exact common counts for
   JUST those pairs from the resident packed planes (O(W^2 K) per pair — a
   density-fraction of the tile recompute).  Pulled bytes scale with
@@ -39,13 +39,15 @@ from ..cluster.mst import (
 )
 from ..distance.mash import aaf_distance, mash_distance, size_ratio_limit
 from .pack import pack_sketches
-from .intersect import pair_counts_jnp, pair_counts_row, pair_counts_row_pallas
+from .intersect import (pair_counts_jnp, pair_counts_row,
+                        pair_counts_triton, pick_pair_kernel)
 
 
 def _tile_counts(a0, b0, a1, b1, backend: str):
-    """Exact pair counts for one (rb x rb) tile of resident packed planes."""
-    if backend == "pallas":
-        return pair_counts_row_pallas(a0, b0, a1, b1, gj_tile=128)
+    """Exact pair counts for one (rb x rb) tile of resident packed planes
+    (``backend`` "triton" | "jnp", see intersect.pick_pair_kernel)."""
+    if backend == "triton":
+        return pair_counts_triton(a0, b0, a1, b1)
     return pair_counts_jnp(a0, b0, a1, b1)
 
 
@@ -168,7 +170,7 @@ def compute_mst_device(
     return _compute_mst_device_full(
         hashes, threshold, kmer_size, is_containment=is_containment,
         with_dense=with_dense, start_index=start_index, pre_edges=pre_edges,
-        row_tile=row_tile, col_tile=col_tile, backend=backend)
+        row_tile=row_tile, col_tile=col_tile)
 
 
 def _edges_from_pairs(ii, jj, common, sizes, threshold, kmer_size,
@@ -210,7 +212,7 @@ def _compute_mst_device_compact(hashes, threshold, kmer_size,
                          "filter; use the host engine")
     n_pad = packed.n
     if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
+        backend = pick_pair_kernel(jax.default_backend(), rb, rb, packed.k)
 
     dense = np.zeros((DENSE_SPAN, n), dtype=np.int64) if with_dense else None
     ani = np.zeros(101, dtype=np.int64) if with_dense else None
@@ -310,7 +312,6 @@ def _compute_mst_device_full(
     pre_edges: Optional[Edges] = None,
     row_tile: int = 256,
     col_tile: int = 128,
-    backend: str = "auto",
 ) -> MstResult:
     n = len(hashes)
     use64 = hashes[0].dtype == np.uint64
@@ -347,8 +348,7 @@ def _compute_mst_device_full(
         pow2 = 1 << (i0 + gi - 1).bit_length()
         nc = min(n_pad, max(col_tile, -(-pow2 // col_tile) * col_tile))
         c = pair_counts_row(packed.row_block(i0, gi),
-                            packed.row_block(0, nc),
-                            gj_tile=col_tile, backend=backend)
+                            packed.row_block(0, nc), gj_tile=col_tile)
         if u16_ok:
             import jax.numpy as jnp
             c = c.astype(jnp.uint16)

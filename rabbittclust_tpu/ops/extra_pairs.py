@@ -2,11 +2,11 @@
 
 The reference reaches these only through the legacy dense all-pairs path
 (modifyMST, src/MST.cpp:809-1018: no prefilter, every (i, j) scored with the
-sketch type's ->distance() virtual).  TPU-first formulation: WMH and OMH
+sketch type's ->distance() virtual).  Device formulation: WMH and OMH
 similarities are *positional token matches* — sample s of genome i matches
 sample s of genome j iff all token components are equal — so the whole
 N x N similarity matrix is one batched integer-equality reduction on
-device (int32 compare + sum, vectorizes on the VPU; no MXU needed since
+device (int32 compare + sum, elementwise; no matrix product needed since
 S is tiny).  HLL needs per-pair register maxima (not a positional match);
 computed host-side in f64 NumPy chunks.
 

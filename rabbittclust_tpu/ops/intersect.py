@@ -1,19 +1,20 @@
 """Pairwise exact sketch-intersection counts on device.
 
 Two implementations with identical semantics:
-  * ``pair_counts_jnp`` — pure jnp broadcast/compare (reference + CPU tests)
-  * ``pair_counts_pallas`` — Pallas TPU kernel: grid over column tiles, row
-    tile resident in VMEM, per-(r, s) slot comparison over the bucket axis
-    (VPU elementwise compare + integer accumulate; lanes = buckets).
+  * ``pair_counts_jnp`` — plain jnp compare-and-count, the reference (and
+    the path on every backend but the GPU).  XLA fuses each slot pair's
+    compare and sum into one loop, but walks the (GI, GJ) output once per
+    slot pair.
+  * ``pair_counts_triton`` — Pallas kernel on the Triton route.  One block
+    per (row tile, column tile) of the output; the W^2 slot pairs and the
+    K chunks are looped inside the block, so the block's counts stay in
+    registers until the single store.
 
 Per-pair work is K * W^2 compares where K = bucket count (~sketch size) and
-W = max bucket occupancy; the HBM traffic is one pass over the column tiles
-per row tile (Mosaic double-buffers the streaming automatically).
-
-Counts are exact set-intersection sizes |A∩B| (see ops/pack.py for why the
-bucketed compare is exact).  The final Mash/AAF distances are computed from
-these integer counts on the host in float64 — device float rounding can
-never change a cluster decision.
+W = max bucket occupancy.  Counts are exact set-intersection sizes |A∩B|
+(see ops/pack.py for why the bucketed compare is exact).  The final
+Mash/AAF distances are computed from these integer counts on the host in
+float64 — device rounding can never change a cluster decision.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ import jax
 import jax.numpy as jnp
 
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
-try:  # TPU backends
-    from jax.experimental.pallas import tpu as pltpu
-except ImportError:  # pragma: no cover
-    pltpu = None
+# Output tile and K chunk of the Triton kernel.  On an H100 at the dense
+# engine's shapes (4096^2 tile, W=12, K=1024) this is the fastest of the
+# configurations tried: 32x32x32 with 4 warps; 64x64x16 spills and runs
+# 50x slower (PERF.md).
+TRITON_TILE = (32, 32, 32)
 
 
 def pair_counts_jnp(a0, b0, a1=None, b1=None):
@@ -45,114 +48,77 @@ def pair_counts_jnp(a0, b0, a1=None, b1=None):
     return acc
 
 
-def _slot(x, idx):
-    """x (G, W, K) -> (G, K) slice at slot idx without gather lowering."""
-    return jax.lax.index_in_dim(x, idx, axis=1, keepdims=False)
+def _triton_kernel(*refs, w: int, nk: int, bk: int, two: bool):
+    if two:
+        a0, a1, b0, b1, out = refs
+    else:
+        a0, b0, out = refs
+    bi, bj = out.shape
+
+    def k_chunk(kc, acc):
+        ks = pl.ds(pl.multiple_of(kc * bk, bk), bk)
+
+        def row_slot(r, acc):
+            ar0 = a0[:, r, ks]
+            ar1 = a1[:, r, ks] if two else None
+
+            def col_slot(s, acc):
+                eq = ar0[:, None, :] == b0[:, s, ks][None, :, :]
+                if two:
+                    eq &= ar1[:, None, :] == b1[:, s, ks][None, :, :]
+                return acc + jnp.sum(eq.astype(jnp.int32), axis=2)
+
+            return jax.lax.fori_loop(0, w, col_slot, acc)
+
+        return jax.lax.fori_loop(0, w, row_slot, acc)
+
+    out[...] = jax.lax.fori_loop(0, nk, k_chunk,
+                                 jnp.zeros((bi, bj), jnp.int32))
 
 
-def _ref_slot_i(ref, idx, gi, kc):
-    """ref (G, W, K): read slot idx -> (G, 1, K) via dynamic ref read."""
-    return ref[:, pl.ds(idx, 1), :].reshape(gi, 1, kc)
+def triton_tiles_fit(gi: int, gj: int, k: int) -> bool:
+    bi, bj, bk = TRITON_TILE
+    return gi % bi == 0 and gj % bj == 0 and k % bk == 0
 
 
-def _ref_slot_j(ref, idx, gj, kc):
-    return ref[:, pl.ds(idx, 1), :].reshape(1, gj, kc)
-
-
-def _kernel_1plane(a0_ref, b0_ref, out_ref, *, w: int):
-    gi, _, kc = a0_ref.shape
-    gj = b0_ref.shape[0]
-
-    def body(t, acc):
-        ar = _ref_slot_i(a0_ref, t // w, gi, kc)
-        bs = _ref_slot_j(b0_ref, t % w, gj, kc)
-        return acc + jnp.sum(ar == bs, axis=-1, dtype=jnp.int32)
-
-    acc = jax.lax.fori_loop(0, w * w, body,
-                            jnp.zeros((gi, gj), dtype=jnp.int32))
-
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        out_ref[...] = acc
-
-    @pl.when(pl.program_id(2) != 0)
-    def _accum():
-        out_ref[...] += acc
-
-
-def _kernel_2plane(a0_ref, a1_ref, b0_ref, b1_ref, out_ref, *, w: int):
-    gi, _, kc = a0_ref.shape
-    gj = b0_ref.shape[0]
-
-    def body(t, acc):
-        r = t // w
-        s = t % w
-        eq = (_ref_slot_i(a0_ref, r, gi, kc) ==
-              _ref_slot_j(b0_ref, s, gj, kc))
-        eq &= (_ref_slot_i(a1_ref, r, gi, kc) ==
-               _ref_slot_j(b1_ref, s, gj, kc))
-        return acc + jnp.sum(eq, axis=-1, dtype=jnp.int32)
-
-    acc = jax.lax.fori_loop(0, w * w, body,
-                            jnp.zeros((gi, gj), dtype=jnp.int32))
-
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        out_ref[...] = acc
-
-    @pl.when(pl.program_id(2) != 0)
-    def _accum():
-        out_ref[...] += acc
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("gi_tile", "gj_tile", "interpret"))
-def pair_counts_row_pallas(a0, b0, a1=None, b1=None, gi_tile: int = 8,
-                           gj_tile: int = 128, interpret: bool = False):
-    """Counts of one row block vs ALL columns: a0 (GI, W, K), b0 (N, W, K)
-    -> (GI, N) int32.
-
-    Grid is (nJ, nI) with the row subtile fastest: each column block is
-    loaded into VMEM once and stays resident while all row subtiles sweep
-    past it (Mosaic keeps blocks whose index map doesn't change)."""
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def pair_counts_triton(a0, b0, a1=None, b1=None, interpret: bool = False):
+    """Same contract as ``pair_counts_jnp``; GI, GJ and K must be multiples
+    of ``TRITON_TILE`` (``triton_tiles_fit``).  ``interpret`` runs the
+    kernel in the Pallas interpreter (CPU tests)."""
     gi, w, k = a0.shape
-    n = b0.shape[0]
-    assert n % gj_tile == 0, (n, gj_tile)
-    assert gi % gi_tile == 0, (gi, gi_tile)
-    kc = min(k, 256)
-    assert k % kc == 0, (k, kc)
-    grid = (n // gj_tile, gi // gi_tile, k // kc)
+    gj = b0.shape[0]
+    if not triton_tiles_fit(gi, gj, k):
+        raise ValueError(f"shapes {a0.shape} x {b0.shape} do not tile by "
+                         f"{TRITON_TILE}")
+    bi, bj, bk = TRITON_TILE
     two = a1 is not None
-    kern = functools.partial(_kernel_2plane if two else _kernel_1plane, w=w)
-    a_spec = pl.BlockSpec((gi_tile, w, kc), lambda j, i, kk: (i, 0, kk))
-    b_spec = pl.BlockSpec((gj_tile, w, kc), lambda j, i, kk: (j, 0, kk))
-    out_spec = pl.BlockSpec((gi_tile, gj_tile), lambda j, i, kk: (i, j))
+    kern = functools.partial(_triton_kernel, w=w, nk=k // bk, bk=bk, two=two)
+    a_spec = pl.BlockSpec((bi, w, k), lambda i, j: (i, 0, 0))
+    b_spec = pl.BlockSpec((bj, w, k), lambda i, j: (j, 0, 0))
     in_specs = [a_spec, a_spec, b_spec, b_spec] if two else [a_spec, b_spec]
     args = (a0, a1, b0, b1) if two else (a0, b0)
     return pl.pallas_call(
         kern,
-        grid=grid,
+        grid=(gi // bi, gj // bj),
         in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((gi, n), jnp.int32),
+        out_specs=pl.BlockSpec((bi, bj), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((gi, gj), jnp.int32),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
+        name="pair_counts_triton",
     )(*args)
 
 
-def pair_counts_row(a_block, b_packed, gj_tile: int = 128,
-                    backend: str = "auto"):
-    """Dispatch helper over PackedSketches blocks."""
-    interpret = False
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "interpret":
-        backend, interpret = "pallas", True
-    if backend == "pallas":
-        return pair_counts_row_pallas(
-            jnp.asarray(a_block.plane0), jnp.asarray(b_packed.plane0),
-            None if a_block.plane1 is None else jnp.asarray(a_block.plane1),
-            None if b_packed.plane1 is None else jnp.asarray(b_packed.plane1),
-            gj_tile=gj_tile, interpret=interpret)
+def pick_pair_kernel(platform: str, gi: int, gj: int, k: int) -> str:
+    """"triton" on a GPU when the shapes tile, else "jnp"."""
+    return "triton" if platform == "gpu" and triton_tiles_fit(gi, gj, k) \
+        else "jnp"
+
+
+def pair_counts_row(a_block, b_packed, gj_tile: int = 128):
+    """Counts of a PackedSketches row block against all packed columns."""
     return _pair_counts_row_jnp(
         jnp.asarray(a_block.plane0), jnp.asarray(b_packed.plane0),
         None if a_block.plane1 is None else jnp.asarray(a_block.plane1),

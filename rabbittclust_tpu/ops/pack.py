@@ -1,4 +1,4 @@
-"""Bucketed dense packing of variable-size sketches for the TPU pair engine.
+"""Bucketed dense packing of variable-size sketches for the device pair engine.
 
 Variable-size sorted hash arrays don't tile; the device engine instead
 operates on a dense per-genome layout:

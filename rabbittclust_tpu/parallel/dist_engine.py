@@ -1,14 +1,16 @@
-"""Multi-chip distance engine — mesh-sharded pair tiles over ICI.
+"""Multi-card distance engine — mesh-sharded pair tiles over the
+interconnect.
 
 Design (SURVEY.md §2.14/§5: the reference is single-node OpenMP only; the
-distributed layer is new, TPU-first):
+distributed layer is new):
 
   * genomes are sharded row-block data-parallel over a 1-D device mesh
     ("data" axis); every device holds its packed sketch shard;
   * pairwise tiles are computed ring-style: at step t each device compares
     its resident rows against the visiting column shard, then forwards the
-    visiting shard to its ring neighbor with ``jax.lax.ppermute`` (ICI
-    traffic only, no host gathers);
+    visiting shard to its ring neighbor with ``jax.lax.ppermute``
+    (interconnect traffic only, no host gathers; on NVLink every card
+    reaches every other at the same rate, so a flat 1-D mesh fits);
   * per-shard candidate edges are reduced locally (streaming Kruskal on the
     host per shard) and merged into the global MST by the driver — exact by
     the edge-partition MST theorem.
@@ -36,20 +38,37 @@ def make_mesh(n_devices: Optional[int] = None):
 
 
 def _counts_block(a0, b0, a1=None, b1=None):
-    """(GI, W, K) x (GJ, W, K) -> (GI, GJ) int32 exact counts (XLA path)."""
-    import jax.numpy as jnp
+    """(GI, W, K) x (GJ, W, K) -> (GI, GJ) int32 exact counts: the Triton
+    kernel on a GPU when the shard shapes tile, else the jnp reference."""
+    import jax
+    from ..ops.intersect import (pair_counts_jnp, pair_counts_triton,
+                                 pick_pair_kernel)
 
-    w = a0.shape[1]
-    acc = jnp.zeros((a0.shape[0], b0.shape[0]), dtype=jnp.int32)
-    for r in range(w):
-        ar0 = a0[:, r, :][:, None, :]
-        for s in range(w):
-            bs0 = b0[:, s, :][None, :, :]
-            eq = ar0 == bs0
-            if a1 is not None:
-                eq &= a1[:, r, :][:, None, :] == b1[:, s, :][None, :, :]
-            acc = acc + jnp.sum(eq, axis=-1, dtype=jnp.int32)
-    return acc
+    if pick_pair_kernel(jax.default_backend(), a0.shape[0], b0.shape[0],
+                        a0.shape[2]) == "triton":
+        return pair_counts_triton(a0, b0, a1, b1)
+    return pair_counts_jnp(a0, b0, a1, b1)
+
+
+def _shard_rows(mesh, *arrays):
+    """Host arrays placed row-sharded over the mesh's "data" axis: each
+    device receives only its own rows, nothing is staged whole on one
+    device first."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    sharding = NamedSharding(mesh, P("data"))
+    return tuple(jax.device_put(np.ascontiguousarray(a), sharding)
+                 for a in arrays)
+
+
+def _replicate(mesh, array):
+    """A host array copied to every device of the mesh."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    return jax.device_put(np.ascontiguousarray(array),
+                          NamedSharding(mesh, P()))
 
 
 def _n_ring_steps(n_dev: int) -> int:
@@ -137,7 +156,6 @@ def distributed_candidate_stats(packed_plane0: np.ndarray,
     threshold, min pair distance).  Demonstrates/validates the multi-chip
     sharded path; exact edge extraction reuses the same tiles."""
     import jax
-    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from ..distance.mash import size_ratio_limit
 
@@ -159,9 +177,8 @@ def distributed_candidate_stats(packed_plane0: np.ndarray,
         check_vma=False,
     )
     row_ids = np.arange(n, dtype=np.int32)
-    total, min_d = jax.jit(fn)(
-        jnp.asarray(packed_plane0), jnp.asarray(sizes.astype(np.int32)),
-        jnp.asarray(row_ids))
+    total, min_d = jax.jit(fn)(*_shard_rows(
+        mesh, packed_plane0, sizes.astype(np.int32), row_ids))
     return int(np.asarray(total)), float(np.asarray(min_d))
 
 
@@ -228,7 +245,8 @@ def build_ring_edges_fn(threshold: float, kmer_size: int, radio: int,
 
 def distributed_candidate_edges(packed_plane0: np.ndarray,
                                 sizes: np.ndarray, threshold: float,
-                                kmer_size: int, mesh=None, cap: int = 4096,
+                                kmer_size: int, mesh=None,
+                                cap: Optional[int] = None,
                                 radio: Optional[int] = None,
                                 packed_plane1: Optional[np.ndarray] = None):
     """Exact candidate edges (i, j, common) across the mesh, every pair
@@ -241,7 +259,6 @@ def distributed_candidate_edges(packed_plane0: np.ndarray,
     gate entirely (containment criteria are ratio-free).  ``packed_plane1``
     enables 64-bit KSSD hashes (two uint32 planes per slot)."""
     import jax
-    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from ..distance.mash import size_ratio_limit
 
@@ -255,11 +272,17 @@ def distributed_candidate_edges(packed_plane0: np.ndarray,
             f"({n_dev}); pad with pack_sketches(pad_n_to=n_dev)")
     if radio is None:
         radio = size_ratio_limit(threshold, kmer_size - 1)
+    if cap is None:
+        # one sixteenth of a step's pairs, as the bitmap ring: clustered
+        # corpora share hashes within clusters, and every overflow re-runs
+        # the whole ring
+        shard = n // n_dev
+        cap = max(4096, min(shard * shard // 16, 1 << 24))
     two = packed_plane1 is not None
     row_ids = np.arange(n, dtype=np.int32)
     plane1 = packed_plane1 if two else packed_plane0[:, :1, :1]
-    args = (jnp.asarray(packed_plane0), jnp.asarray(plane1),
-            jnp.asarray(sizes.astype(np.int32)), jnp.asarray(row_ids))
+    args = _shard_rows(mesh, packed_plane0, plane1, sizes.astype(np.int32),
+                       row_ids)
     while True:
         ring_fn = build_ring_edges_fn(threshold, kmer_size, radio, cap,
                                       two_plane=two)
@@ -295,16 +318,16 @@ def distributed_candidate_edges(packed_plane0: np.ndarray,
 
 def build_ring_bitmap_fn(cap: int, jmin_num: float, jmin_den: float,
                          c_min: float, radio: int, is_containment: bool):
-    """shard_map-able MXU bitmap-filter ring — the distributed twin of
+    """shard_map-able bitmap-filter ring — the distributed twin of
     ops.bitmap._filter_block_fn.
 
     Each device keeps its row shard's bit-packed signatures resident
     (unpacked to 0/1 bf16 once) and rotates the visiting shard's PACKED
     uint8 signatures (+ collisions/sizes/ids) around the ring — 16x less
-    ICI traffic than bf16; shared-bit counts come from ONE bf16 matmul on
-    the MXU (bits MACs/pair, exact: 0/1 products, f32 accumulation)
-    instead of the exact ring's O(W^2 K) bucket compares (~8x more ops on
-    the much slower VPU — a ~100x per-step FLOP cost drop).  The same deterministic no-false-negative bound as the
+    interconnect traffic than bf16; shared-bit counts come from ONE bf16
+    matmul on the tensor cores (bits MACs/pair, exact: 0/1 products, f32
+    accumulation) instead of the exact ring's O(W^2 K) bucket compares.
+    The same deterministic no-false-negative bound as the
     single-chip filter (shared >= common_min - min(collisions)) gates the
     candidates; survivors are verified exactly on the host."""
     import jax
@@ -370,7 +393,7 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
                                        mesh=None, bits: int = 8192,
                                        cap: Optional[int] = None,
                                        radio: Optional[int] = None):
-    """MXU bitmap-filter candidates (i > j, unverified) over a device mesh.
+    """bitmap-filter candidates (i > j, unverified) over a device mesh.
 
     The distributed counterpart of ops.bitmap.candidate_pair_blocks: no
     false negatives for pairs reachable at distance <= threshold (and
@@ -380,7 +403,6 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
     auto-regrows (re-runs the ring 4x larger) on overflow."""
     import math
     import jax
-    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from ..distance.mash import min_jaccard_for_threshold, size_ratio_limit
     from ..ops.bitmap import _pull_quantum, pack_bitmaps_packed
@@ -401,8 +423,7 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
     shard = n_pad // n_dev
     if cap is None:
         cap = max(1 << 16, shard * shard // 16)
-    args = (jnp.asarray(xp), jnp.asarray(coll), jnp.asarray(sizes),
-            jnp.asarray(row_ids))
+    args = _shard_rows(mesh, xp, coll, sizes, row_ids)
     while True:
         ring_fn = build_ring_bitmap_fn(cap, j_min, 1.0 + j_min, c_min,
                                        radio, is_containment)
@@ -442,12 +463,12 @@ def distributed_candidate_pairs_bitmap(hashes, threshold: float,
 
 def distributed_mst(hashes, threshold: float, kmer_size: int,
                     is_containment: bool = False, mesh=None,
-                    cap: int = 4096, engine: str = "auto",
+                    cap: Optional[int] = None, engine: str = "auto",
                     bits: int = 8192, full_mst: bool = False):
     """MST over a device mesh (edge-partition MST theorem).
 
     engine="auto" (default) mirrors cluster.mst.compute_mst(backend="auto"):
-    it selects by USE — the fast MXU "bitmap" ring when the MST only needs
+    it selects by USE — the fast "bitmap" ring when the MST only needs
     to be exact for cuts <= ``threshold`` (clustering / re-clustering at
     smaller d, the common case), and the full "exact" ring when
     ``full_mst=True`` (the MST will be persisted as edge.mst and re-cut at
@@ -458,7 +479,7 @@ def distributed_mst(hashes, threshold: float, kmer_size: int,
     passing the size-ratio prefilter — byte-equal to the host compute_mst /
     reference edge.mst, valid for cuts at ANY threshold.
 
-    engine="bitmap": MXU bitmap-filter ring (build_ring_bitmap_fn) + native
+    engine="bitmap": bitmap-filter ring (build_ring_bitmap_fn) + native
     exact verify — inherits the single-chip filter's speed.  The candidate
     bound is threshold-dependent, so the returned MST is exact for every
     cut <= threshold but may lack candidate edges above it."""
@@ -535,7 +556,7 @@ def distributed_similarity_graph(hashes, threshold: float, kmer_size: int,
     size ratio >= 0.5, weight = 1 - dist (leiden.cpp:188-256 semantics).
 
     Identical edge set and float64 weights as
-    cluster.leiden.build_similarity_graph (no kNN): the MXU bitmap-filter
+    cluster.leiden.build_similarity_graph (no kNN): the bitmap-filter
     ring produces a no-false-negative candidate superset (with a ratio
     prefilter that also covers the Leiden >= 0.5 window) and the exact
     filters run on the host from exact native counts."""
@@ -574,7 +595,7 @@ def distributed_threshold_clusters(hashes, threshold: float, kmer_size: int,
     """Exact single-linkage clusters at ``threshold`` over a device mesh
     (BFS-ordered like the reference MST cut).
 
-    Default engine: MXU bitmap-filter ring + union-find-gated native exact
+    Default engine: bitmap-filter ring + union-find-gated native exact
     verify — the distributed twin of ops.cluster_fast.threshold_clusters_
     device, inheriting the single-chip engine's speed.  engine="exact"
     keeps the bucket-packed exact-count ring (slower, used for A/B)."""
@@ -583,7 +604,7 @@ def distributed_threshold_clusters(hashes, threshold: float, kmer_size: int,
     if engine == "exact":
         res = distributed_mst(hashes, threshold, kmer_size,
                               is_containment=is_containment, mesh=mesh,
-                              cap=cap or 4096, engine="exact")
+                              cap=cap, engine="exact")
         return clusters_from_forest(cut_forest(res.mst, threshold),
                                     len(hashes))
     from ..cluster.union_find import UnionFind
@@ -615,7 +636,7 @@ def distributed_threshold_clusters(hashes, threshold: float, kmer_size: int,
 # Masks stay RESIDENT per device (the single-chip ops/labelprop.py design,
 # sharded: each device holds its triangular-schedule mask slab, N^2/8/D
 # bytes), Boruvka rounds pull O(N) proposals; collectives (ppermute for the
-# build ring, pmin/psum for proposal merging) ride ICI.
+# build ring, pmin/psum for proposal merging) ride the interconnect.
 
 def build_ring_masks_fn(jmin_num: float, jmin_den: float, c_min: float,
                         radio: int, is_containment: bool):
@@ -786,15 +807,14 @@ def distributed_threshold_clusters_lp(hashes, threshold: float,
                                       max_rounds: int = 256):
     """Exact single-linkage clusters over the mesh via resident-mask label
     propagation — the distributed twin of the bench headline engine
-    (ops.labelprop.threshold_clusters_device_lp).  Per-device HBM is
-    N^2/8/n_dev mask bytes (the mesh IS the panel streaming: 8 chips hold
+    (ops.labelprop.threshold_clusters_device_lp).  Per-device memory is
+    N^2/8/n_dev mask bytes (the mesh IS the panel streaming: 8 cards hold
     1M genomes' masks at ~8.7 GB each); per-round host traffic is O(N).
     Exactness: the same argument as the single-chip engine — the slabs
     jointly hold every unordered pair exactly once (triangular ownership),
     rounds only retire pairs by verified merge, verified clear, or
     same-label gating."""
     import math
-    import jax.numpy as jnp
     from ..cluster.mst import clusters_from_forest, sort_edges
     from ..cluster.union_find import UnionFind
     from ..distance.mash import min_jaccard_for_threshold, size_ratio_limit
@@ -809,8 +829,8 @@ def distributed_threshold_clusters_lp(hashes, threshold: float,
         mesh = make_mesh()
     n_dev = int(mesh.devices.size)
     n_steps = _n_ring_steps(n_dev)
-    # shard rows must divide by 8 (bit-packed mask columns) — 128 also
-    # aligns the TPU lane dimension
+    # shard rows must divide by 8 (bit-packed mask columns); 128 keeps
+    # every shard a multiple of the filter's row tiles
     xp, coll = bm.pack_bitmaps_packed(hashes, bits=bits,
                                       pad_n_to=n_dev * 128)
     n_pad = xp.shape[0]
@@ -824,8 +844,7 @@ def distributed_threshold_clusters_lp(hashes, threshold: float,
     build, rnd = _jitted_dist_lp(
         mesh, j_min, 1.0 + j_min, c_min, radio, is_containment)
 
-    masks = build(jnp.asarray(xp), jnp.asarray(coll), jnp.asarray(sizes),
-                  jnp.asarray(row_ids))
+    masks = build(*_shard_rows(mesh, xp, coll, sizes, row_ids))
     uf = UnionFind(n)
     csr = bm.CsrSketches(hashes)
     sizes64 = sizes.astype(np.int64)
@@ -846,7 +865,7 @@ def distributed_threshold_clusters_lp(hashes, threshold: float,
     while rounds < max_rounds:
         rounds += 1
         masks, row_p_dev, fused_dev = rnd(
-            masks, jnp.asarray(labels_arr()), jnp.asarray(clr))
+            masks, _replicate(mesh, labels_arr()), *_shard_rows(mesh, clr))
         row_p = np.asarray(row_p_dev)
         fused = np.asarray(fused_dev)
         bm._account_pull(row_p.nbytes + fused.nbytes)
@@ -920,7 +939,7 @@ DIST_LP_LAST: dict = {}
 
 def dist_lp_comm_stats(n_pad: int, n_dev: int, bits: int, rounds: int
                        ) -> dict:
-    """Per-device ICI communication volume of the mesh labelprop engine.
+    """Per-device interconnect volume of the mesh labelprop engine.
 
     Analytic, not sampled: the compiled programs are static, so the
     collective payloads are exactly the buffers in the code —
@@ -929,27 +948,28 @@ def dist_lp_comm_stats(n_pad: int, n_dev: int, bits: int, rounds: int
     each Boruvka round (dist_lp_round_fn): pmin over col_p (n_pad i32)
     + psum of one i32, costed at the ring-allreduce volume
     2(n_dev-1)/n_dev x payload per device.  This is the quantity a
-    real-pod projection divides by ICI bandwidth (wall clock on the
+    projection divides by the interconnect's bandwidth (wall clock on the
     core-shared virtual mesh cannot evidence it)."""
     shard = n_pad // max(n_dev, 1)
     n_steps = _n_ring_steps(n_dev)
-    # a 1-device "ring" self-permutes in HBM: nothing crosses ICI
+    # a 1-device "ring" self-permutes in device memory: nothing crosses
+    # the interconnect
     hop = (shard * (bits // 8) + 3 * shard * 4) if n_dev > 1 else 0
     ar = 2.0 * (n_dev - 1) / max(n_dev, 1)
     per_round = int(ar * (n_pad * 4 + 4))
     return {
-        "ici_bytes_per_hop": hop,
+        "link_bytes_per_hop": hop,
         "build_hops": n_steps,
-        "build_ici_bytes_per_device": n_steps * hop,
+        "build_link_bytes_per_device": n_steps * hop,
         "allreduce_bytes_per_round_per_device": per_round,
         "rounds": rounds,
-        "total_ici_bytes_per_device": n_steps * hop + rounds * per_round,
+        "total_link_bytes_per_device": n_steps * hop + rounds * per_round,
     }
 
 
 def ring_comm_stats(n_pad: int, n_dev: int, row_bytes: int,
                     extra_i32_vectors: int = 3) -> dict:
-    """Per-device ICI volume of the ppermute ring engines
+    """Per-device interconnect volume of the ppermute ring engines
     (build_ring_bitmap_fn / build_ring_edges_fn / build_ring_fn): each of
     the n_steps hops moves the visiting shard's payload
     (shard x row_bytes) plus ``extra_i32_vectors`` shard-length i32
@@ -959,7 +979,7 @@ def ring_comm_stats(n_pad: int, n_dev: int, row_bytes: int,
     hop = (shard * row_bytes + extra_i32_vectors * shard * 4) \
         if n_dev > 1 else 0
     return {
-        "ici_bytes_per_hop": hop,
+        "link_bytes_per_hop": hop,
         "hops": n_steps,
-        "total_ici_bytes_per_device": n_steps * hop,
+        "total_link_bytes_per_device": n_steps * hop,
     }

@@ -2,10 +2,10 @@
 global device mesh.
 
 The reference is single-node shared-memory only (SURVEY.md §2.14); this
-layer is new TPU-first design, not a port.  Topology:
+layer is new design, not a port.  Topology:
 
-  * N processes (one per host), each owning its local TPU chips; a global
-    1-D "data" mesh spans every chip of every host
+  * N processes (one per host), each owning its local cards; a global
+    1-D "data" mesh spans every card of every host
     (``jax.distributed.initialize`` + ``jax.devices()``).
   * genomes are data-parallel across processes in contiguous global-id
     blocks (``shard_bounds``); each process ingests + sketches ONLY its
@@ -13,9 +13,10 @@ layer is new TPU-first design, not a port.  Topology:
     the full FASTA set).
   * each process bit-packs its rows and contributes them to a globally
     sharded signature array (``jax.make_array_from_process_local_data``);
-    the SAME MXU bitmap-filter ring as the single-process engine
+    the SAME bitmap-filter ring as the single-process engine
     (dist_engine.build_ring_bitmap_fn) runs over the global mesh — the
-    ``ppermute`` hops ride ICI within a host and DCN between hosts, with
+    ``ppermute`` hops ride NVLink within a host and the network between
+    hosts, with
     no host in the loop.
   * compacted candidates land on the device owning the row shard; each
     process exact-verifies ITS candidates against the allgathered sketch
@@ -141,7 +142,7 @@ def multihost_candidate_pairs_bitmap(
         kmer_size: int, is_containment: bool = False, bits: int = 8192,
         cap: Optional[int] = None, radio: Optional[int] = None,
         mesh=None) -> Tuple[np.ndarray, np.ndarray]:
-    """MXU bitmap-filter candidates over the GLOBAL (multi-process) mesh.
+    """Bitmap-filter candidates over the GLOBAL (multi-process) mesh.
 
     Each process passes only its own contiguous genome block; returns the
     candidate pairs (global ids, i > j, unverified) whose owning row shard

@@ -873,7 +873,7 @@ def batch_query_device(state, query_hashes: List[np.ndarray], topk: int):
     """Device-accelerated batch serving: query many genomes against a
     representative database in one shot.
 
-    The MXU bitmap filter produces a SUPERSET of the reference's candidate
+    The bitmap filter produces a SUPERSET of the reference's candidate
     set (its bounds are strictly looser than query_topk's min-common and
     size-ratio filters), then every surviving (query, rep) pair is re-scored
     with the exact reference criteria — results are identical to calling

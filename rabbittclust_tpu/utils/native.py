@@ -1,24 +1,38 @@
-"""ctypes bindings for the native runtime (native/librtc_native.so).
+"""ctypes bindings for the native runtime (native/rtc_native.cpp).
 
 The native library provides the host-side, string/IO-bound components:
-glibc-rand shuffle table, KSSD/MinHash sketchers, and parallel FASTA ingest.
-If the library is missing we attempt to build it with g++; pure-NumPy
-fallbacks exist for everything (slower, used in restricted environments).
+glibc-rand shuffle table, KSSD/MinHash sketchers, parallel FASTA ingest,
+exact verify and union-find.  It is built from source at first use into
+``native/build/librtc_native-<key>.so``, where the key hashes the source and
+the compiler flags, so an edit or a flag change builds a fresh library.
+Build it ahead of time with ``python -m rabbittclust_tpu.utils.native``.
+If it cannot be built, pure-NumPy fallbacks run instead (slower).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
+import sys
+import tempfile
 from functools import lru_cache
 
 import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "librtc_native.so")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 _SRC_PATH = os.path.join(_NATIVE_DIR, "rtc_native.cpp")
+
+# Portable flags: no -march=native, so a library built on one host runs on
+# any other x86-64 host the checkout is copied to (popcnt is in every
+# x86-64 CPU of the last fifteen years).
+BUILD_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC") + (
+    ("-mpopcnt",) if platform.machine() in ("x86_64", "AMD64") else ())
 
 _c_u64p = ctypes.POINTER(ctypes.c_uint64)
 _c_i64p = ctypes.POINTER(ctypes.c_int64)
@@ -26,36 +40,68 @@ _c_i32p = ctypes.POINTER(ctypes.c_int32)
 _c_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 
-def _try_build() -> bool:
-    if not os.path.exists(_SRC_PATH):
-        return False
+def build_key(source: bytes, flags=BUILD_FLAGS) -> str:
+    h = hashlib.sha256(source)
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    with open(_SRC_PATH, "rb") as f:
+        key = build_key(f.read())
+    return os.path.join(_BUILD_DIR, f"librtc_native-{key}.so")
+
+
+def build_native(path: str, flags=BUILD_FLAGS) -> None:
+    """Compile rtc_native.cpp into ``path``.  The compiler writes a
+    temporary file beside it, which ``os.replace`` installs in one step, so
+    a concurrent reader never sees a half-written library."""
+    d = os.path.dirname(path)
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".build-", suffix=".so")
+    os.close(fd)
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-             "-o", _LIB_PATH, _SRC_PATH, "-lz"],
-            check=True, capture_output=True, timeout=300,
-        )
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+        subprocess.run(["g++", *flags, "-o", tmp, _SRC_PATH, "-lz"],
+                       check=True, capture_output=True, timeout=600)
+        os.chmod(tmp, 0o755)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _ensure_built() -> str | None:
+    """Path of the current library, building it if needed; None when the
+    build fails.  A file lock keeps concurrent processes (test workers)
+    from compiling the same library side by side."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            try:
+                build_native(path)
+            except (OSError, subprocess.SubprocessError) as e:
+                err = getattr(e, "stderr", b"") or b""
+                print(f"native build failed: {e}\n"
+                      f"{err.decode(errors='replace')[-2000:]}",
+                      file=sys.stderr)
+                return None
+    return path
 
 
 @lru_cache(maxsize=1)
 def load_native():
-    """Load (building if needed) the native library; None if unavailable.
-
-    A stale .so (older than rtc_native.cpp, e.g. after a git pull) is
-    rebuilt automatically — new ctypes signatures below would otherwise
-    fail on missing symbols."""
-    stale = (os.path.exists(_LIB_PATH) and os.path.exists(_SRC_PATH)
-             and os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH))
-    if stale:
-        _try_build()  # failure falls through to loading the stale copy
-    if not os.path.exists(_LIB_PATH) and not _try_build():
+    """Load (building if needed) the native library; None if unavailable."""
+    path = _ensure_built()
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        print(f"native library failed to load: {e}", file=sys.stderr)
         return None
     # signatures
     lib.rtc_version.restype = ctypes.c_int
@@ -353,3 +399,10 @@ class SketchResultHandle:
                 self._ptr = None
         except Exception:
             pass
+
+
+if __name__ == "__main__":
+    lib_path = _ensure_built()
+    if lib_path is None:
+        sys.exit(1)
+    print(lib_path, " ".join(BUILD_FLAGS))

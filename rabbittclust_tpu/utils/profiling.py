@@ -1,11 +1,10 @@
 """Optional device profiling (SURVEY.md §5: the reference has only
-wall-clock Timer macros; the TPU equivalent is phase timers plus
-jax.profiler traces).
+wall-clock Timer macros; here phase timers plus jax.profiler traces).
 
 Set ``RTC_PROFILE_DIR=/path`` to capture a TensorBoard/Perfetto trace of
 every compute phase that passes through ``maybe_trace`` (workflow distance
-phases, device engines, bench).  No-op (zero overhead) when unset or when
-the profiler is unavailable.
+phases, device engines, bench).  A no-op when unset; when set, a trace that
+cannot start raises instead of running the phase untraced.
 """
 
 from __future__ import annotations
@@ -22,11 +21,8 @@ def maybe_trace(phase: str):
     if not out:
         yield
         return
-    try:
-        import jax
-        trace_dir = os.path.join(out, phase.replace(" ", "_"))
-        os.makedirs(trace_dir, exist_ok=True)
-        with jax.profiler.trace(trace_dir):
-            yield
-    except Exception:  # profiler unavailable on this backend
+    import jax
+    trace_dir = os.path.join(out, phase.replace(" ", "_"))
+    os.makedirs(trace_dir, exist_ok=True)
+    with jax.profiler.trace(trace_dir):
         yield

@@ -7,8 +7,8 @@ block of the input file list on its own host (the expensive IO/string
 phase — reference SketchInfo.cpp:878-980 is the loop being sharded), the
 tiny sketch store + genome metadata are allgathered (sketches are
 ~genome_len/4096 by design, mirroring the reference's in-RAM sketch
-vectors), and the MXU bitmap-filter ring runs over the GLOBAL device mesh
-(ICI within a host, DCN between hosts).  Every process finishes with the
+vectors), and the bitmap-filter ring runs over the GLOBAL device mesh
+(NVLink within a host, the network between hosts).  Every process finishes with the
 identical partition; process 0 writes the outputs.
 
 ID parity: sketch ids are input-list order among kept genomes (same as the

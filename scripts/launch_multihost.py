@@ -7,10 +7,13 @@ jax.distributed.initialize):
     python -m rabbittclust_tpu.cli.clust_mst --fast -l -i list -o out \
         --multihost host0:8476,N,PROCESS_ID
 
-This helper spawns all N processes locally — with real chips when each
-process can own a disjoint device set, or on a virtual CPU mesh
-(--virtual-cpu-devices M per process) for simulation/testing — and streams
-their stderr.  Process 0 writes the outputs.
+This helper spawns all N processes locally and streams their stderr.
+Process 0 writes the outputs.  On real cards each process gets its own
+disjoint set of this host's cards through CUDA_VISIBLE_DEVICES (a JAX
+process otherwise opens every visible card and reserves most of its
+memory), and more processes than cards are refused.  With
+--virtual-cpu-devices M each process instead simulates M devices on the
+CPU (tests and dry-runs).
 
 Example (2-process CPU simulation, 4 virtual devices each):
 
@@ -37,6 +40,31 @@ def free_port() -> int:
     return port
 
 
+def visible_cards() -> list:
+    """This host's cards: CUDA_VISIBLE_DEVICES when set, else nvidia-smi's
+    list (empty when nvidia-smi is missing or fails)."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c.strip() for c in env.split(",") if c.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return []
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def card_sets(cards: list, nproc: int) -> list:
+    """Split ``cards`` into ``nproc`` disjoint equal sets, one
+    CUDA_VISIBLE_DEVICES value per process."""
+    if nproc > len(cards):
+        raise ValueError(f"{nproc} processes but only {len(cards)} cards "
+                         f"visible; one process per card at most")
+    per = len(cards) // nproc
+    return [",".join(cards[i * per:(i + 1) * per]) for i in range(nproc)]
+
+
 def launch(nproc: int, cli_args, module: str = "mst",
            virtual_cpu_devices: int | None = None, coordinator: str = "",
            timeout: float = 1800.0) -> int:
@@ -44,11 +72,16 @@ def launch(nproc: int, cli_args, module: str = "mst",
     coord = coordinator or f"127.0.0.1:{port}"
     procs = []
     env = dict(os.environ)
+    cards = None
     if virtual_cpu_devices:
         env.pop("XLA_FLAGS", None)
         env["JAX_PLATFORMS"] = "cpu"
         env["RTC_VIRTUAL_CPU_DEVICES"] = str(virtual_cpu_devices)
+    else:
+        cards = card_sets(visible_cards(), nproc)
     for pid in range(nproc):
+        if cards is not None:
+            env = dict(env, CUDA_VISIBLE_DEVICES=cards[pid])
         cmd = [sys.executable, "-m", f"rabbittclust_tpu.cli.clust_{module}",
                *cli_args, "--multihost", f"{coord},{nproc},{pid}"]
         procs.append(subprocess.Popen(cmd, env=env, cwd=REPO,

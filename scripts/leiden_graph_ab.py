@@ -1,7 +1,6 @@
 #!/usr/bin/env python
 """A/B: leiden similarity-graph construction — device bitmap engine vs the
-native host pairs engine (VERDICT r04 item 5: the device path existed but
-had no committed measurement).
+native host pairs engine.
 
 Workload: the scale_bench synthetic corpus (N sketches, ~s hashes,
 clustered) at the leiden CLI's defaults (d=0.05, k=21, knn autoselect
@@ -9,7 +8,7 @@ disabled here — the prune is identical post-processing for both sides).
 Both sides must produce the IDENTICAL edge set/weights (exact counts).
 
 Usage:
-    python scripts/leiden_graph_ab.py --n 100000          # on the TPU
+    python scripts/leiden_graph_ab.py --n 100000          # on the GPU
     JAX_PLATFORMS=cpu python scripts/leiden_graph_ab.py --n 4096  # smoke
 
 Writes one JSON line; appends to .cache/leiden_graph_ab.jsonl.

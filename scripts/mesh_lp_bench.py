@@ -6,13 +6,13 @@ Runs distributed_threshold_clusters_lp at a fixed N on 1/2/4/8 VIRTUAL
 CPU devices and records wall time, per-device resident-mask bytes, pulled
 bytes, and partition equality vs the single-host engine.
 
-Caveat (printed into the JSON): the virtual devices SHARE this box's 2
-physical cores, so wall time cannot show real multi-chip speedup — the
-table evidences (a) correctness at every mesh size, (b) the per-device
+Caveat (printed into the JSON): the virtual devices SHARE the host's
+cores, so wall time cannot show real multi-card speedup — the table
+evidences (a) correctness at every mesh size, (b) the per-device
 memory/work division (N^2/8/n_dev mask bytes — the quantity that scales
-on real chips), and (c) communication volume.  On real v5e chips each
-device's build is an independent MXU sweep of 1/n_dev of the tiles, so
-build time scales ~1/n_dev with ppermute hops riding ICI.
+on real cards), and (c) interconnect volume.  On real cards each device's
+build is an independent filter sweep of 1/n_dev of the tiles; chip_smoke.py
+--gpus 4 runs the engine on four cards.
 
 Usage: python scripts/mesh_lp_bench.py [--n 65536] [--devices 1,2,4,8]
 Must run with JAX_PLATFORMS=cpu (the script forces it before jax loads).
@@ -31,10 +31,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=65536)
-    # sketch/signature sizing: bits must be selective for s^2 (the MXU
+    # sketch/signature sizing: bits must be selective for s^2 (the filter
     # bound is useless when E[random shared] ~ s^2/bits approaches
     # common_min) — s=120 keeps bits=2048 selective AND the CPU-simulated
-    # matmuls affordable; production TPU runs use s=1000/bits=8192
+    # matmuls affordable; production runs use s=1000/bits=8192
     ap.add_argument("--s", type=int, default=120)
     ap.add_argument("--bits", type=int, default=2048)
     ap.add_argument("--devices", default="1,2,4,8")

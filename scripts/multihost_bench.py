@@ -2,13 +2,11 @@
 """Measured multihost (N>=2 process) clustering throughput — CPU-mesh
 SIMULATION.
 
-Real multi-host TPU hardware is not reachable from this environment, so
-this measures the full jax.distributed pipeline (process-sharded sketches
+This measures the full jax.distributed pipeline (process-sharded sketches
 -> global bitmap ring -> per-process exact verify -> forest allgather ->
 deterministic Kruskal) on 2 local processes x 4 virtual CPU devices.  The
-number is a FUNCTIONAL simulation datapoint (2 host cores doing a TPU's
-matmuls), not TPU performance; BENCH_r*.json carries the real single-chip
-numbers.
+number is a FUNCTIONAL simulation datapoint (host cores doing the
+device's matmuls), not device performance.
 
     python scripts/multihost_bench.py --n 2048 --procs 2
 
@@ -97,7 +95,7 @@ def child(pid, nproc, port, ndev, n, threshold, k, module):
             "pairs_per_s": round(n * (n - 1) / 2 / t_mh, 1),
             "t_single_s": round(t_single, 2),
             "partitions_equal": bool(eq),
-            "note": "CPU-mesh simulation (no multi-host TPU reachable)"}),
+            "note": "CPU-mesh simulation, not device performance"}),
             flush=True)
 
 

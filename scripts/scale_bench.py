@@ -1,7 +1,6 @@
 #!/usr/bin/env python
-"""Rerunnable scale validation for the host engines (the numbers quoted in
-README.md / CLAUDE.md).  Host-only — never touches the TPU, safe to run
-alongside device jobs.
+"""Rerunnable scale validation for the host engines.  Host-only — never
+touches the GPU, safe to run alongside device jobs.
 
     python scripts/scale_bench.py greedy --n 1000000   # ~2 min on 2 cores
     python scripts/scale_bench.py mst    --n 300000    # ~3 min on 2 cores

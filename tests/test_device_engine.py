@@ -41,8 +41,7 @@ def test_pair_counts_exact_32_and_64():
                                 use64=use64)
         packed = pack_sketches(hashes, use64=use64, pad_n_to=8)
         block = packed.row_block(0, 16)
-        counts = np.asarray(pair_counts_row(block, packed, gj_tile=8,
-                                            backend="jnp"))
+        counts = np.asarray(pair_counts_row(block, packed, gj_tile=8))
         for i in range(16):
             for j in range(24):
                 if i == j:
@@ -50,15 +49,45 @@ def test_pair_counts_exact_32_and_64():
                 assert counts[i, j] == brute(hashes[i], hashes[j]), (use64, i, j)
 
 
-def test_pallas_interpret_matches_jnp():
+@pytest.mark.parametrize("use64", [False, True], ids=["1plane", "2plane"])
+def test_pallas_interpret_matches_jnp(use64):
+    """The Triton pair-count kernel, run by the Pallas interpreter, equals
+    the jnp reference for one (32-bit) and two (64-bit) hash planes."""
+    from rabbittclust_tpu.ops.intersect import (
+        pair_counts_jnp, pair_counts_triton)
     rng = np.random.default_rng(2)
-    hashes = _rand_sketches(rng, 16, 40, 100)
-    packed = pack_sketches(hashes, use64=False, pad_n_to=8)
-    block = packed.row_block(0, 8)
-    c1 = np.asarray(pair_counts_row(block, packed, gj_tile=8, backend="jnp"))
-    c2 = np.asarray(pair_counts_row(block, packed, gj_tile=8,
-                                    backend="interpret"))
-    assert np.array_equal(c1, c2)
+    # a 12-bit hash domain makes most pairs share hashes
+    hashes = _rand_sketches(rng, 64, 40, 100, bits=12, use64=use64)
+    packed = pack_sketches(hashes, use64=use64, pad_n_to=32)
+    p0, p1 = packed.plane0, packed.plane1
+    a0, b0 = p0[:32], p0[32:]
+    a1, b1 = (p1[:32], p1[32:]) if use64 else (None, None)
+    ref = np.asarray(pair_counts_jnp(a0, b0, a1, b1))
+    got = np.asarray(pair_counts_triton(a0, b0, a1, b1, interpret=True))
+    assert ref.sum() > 0
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize("platform,shape,want", [
+    ("gpu", (4096, 4096, 1024), "triton"),
+    ("gpu", (128, 128, 64), "triton"),
+    ("cpu", (4096, 4096, 1024), "jnp"),
+    ("gpu", (4096, 100, 1024), "jnp"),
+    ("gpu", (4096, 4096, 16), "jnp"),
+])
+def test_pair_kernel_choice(platform, shape, want):
+    """The dense engine takes the Triton kernel on a GPU whenever its
+    shapes tile, and the jnp reference otherwise; the kernel itself
+    refuses shapes that do not tile."""
+    from rabbittclust_tpu.ops.intersect import (
+        pair_counts_triton, pick_pair_kernel)
+    gi, gj, k = shape
+    assert pick_pair_kernel(platform, gi, gj, k) == want
+    if want == "jnp" and platform == "gpu":
+        a = np.zeros((gi, 4, k), np.uint32)
+        b = np.zeros((gj, 4, k), np.uint32)
+        with pytest.raises(ValueError):
+            pair_counts_triton(a, b, interpret=True)
 
 
 def test_device_mst_matches_host(synthetic_genomes):

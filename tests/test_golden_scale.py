@@ -147,8 +147,8 @@ def test_scale_greedy_tie_pressure_byte_identical(oracle, tie_genomes,
 
 @pytest.mark.slow
 def test_scale_device_engine_partition_matches_host(varied_genomes):
-    """The MXU bitmap device path (CPU backend here; the on-TPU twin lives
-    in test_tpu_smoke) must give the reference partition at 400 genomes."""
+    """The bitmap device path (CPU backend here; chip_smoke.py runs its
+    twins on the card) must give the reference partition at 400 genomes."""
     from rabbittclust_tpu.cluster.mst import (
         clusters_from_forest, compute_mst, cut_forest)
     from rabbittclust_tpu.ops.cluster_fast import threshold_clusters_device

@@ -108,8 +108,8 @@ def test_native_greedy_matches_python():
 def test_greedy_density_probe_classifies_corpora():
     """The --device greedy crossover probe must separate the A/B table's
     corpus classes: big-cluster (dense -> native) vs mostly-singleton
-    (sparse -> device).  Anchored to scripts/device_greedy_bench.py
-    --table / .cache/device_greedy_ab.json."""
+    (sparse -> device), as scripts/device_greedy_bench.py --table
+    builds them."""
     import numpy as np
     from rabbittclust_tpu.workflows import _greedy_corpus_is_dense
 

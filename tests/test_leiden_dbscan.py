@@ -142,7 +142,7 @@ def test_dbscan_device_path_matches_host(sketched, synthetic_genomes):
 
 
 def test_leiden_device_graph_matches_host(sketched):
-    """build_similarity_graph(use_device=True) — MXU bitmap candidate
+    """build_similarity_graph(use_device=True) — bitmap candidate
     generation — yields the identical edge set and f64 weights as the
     host inverted-index path."""
     from rabbittclust_tpu.cluster.leiden import build_similarity_graph

@@ -1,7 +1,7 @@
 """Multi-host (jax.distributed) layer: 2-process CPU-mesh simulation.
 
 Each child process owns a contiguous genome block, contributes its rows to
-the globally sharded signature array, runs the MXU bitmap ring over the
+the globally sharded signature array, runs the bitmap ring over the
 global mesh, exact-verifies its own candidates, and allgathers the edge
 forests — the partition must equal the single-host engine on every
 process (see rabbittclust_tpu/parallel/multihost._sim_child for the

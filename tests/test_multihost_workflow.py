@@ -21,7 +21,6 @@ def _single_host_cluster(list_file, out, module="mst", extra=(),
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
-    env["RTC_PLATFORM"] = "cpu"
     thr = (("--eps", "0.05") if module == "dbscan" else ("-d", "0.05"))
     r = subprocess.run(
         [sys.executable, "-m", f"rabbittclust_tpu.cli.clust_{module}",
@@ -84,7 +83,6 @@ def test_multihost_repdb_query_assign_byte_equal(tmp_path,
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
-    env["RTC_PLATFORM"] = "cpu"
     db = str(tmp_path / "rep.db")
     lf = jittered_genomes.list_file
     r = subprocess.run(
@@ -140,3 +138,20 @@ def test_multihost_mst_tie_corpus(tmp_path, synthetic_genomes):
     t1 = _single_host_cluster(synthetic_genomes.list_file,
                               str(tmp_path / "t1.cluster"), threads="1")
     assert _parse_partition(got) == _parse_partition(t1)
+
+
+@pytest.mark.parametrize("cards,nproc,want", [
+    (["0", "1", "2", "3"], 4, ["0", "1", "2", "3"]),
+    (["0", "1", "2", "3"], 2, ["0,1", "2,3"]),
+    (["4", "5", "6"], 1, ["4,5,6"]),
+    (["0", "1"], 4, None),
+])
+def test_launcher_one_process_per_card(cards, nproc, want):
+    """Real-device launches give every process its own cards and refuse
+    more processes than there are cards."""
+    lm = _launcher()
+    if want is None:
+        with pytest.raises(ValueError):
+            lm.card_sets(cards, nproc)
+    else:
+        assert lm.card_sets(cards, nproc) == want
